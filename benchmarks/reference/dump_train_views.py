@@ -1,7 +1,7 @@
 """Dump the rendered training views (the exact inputs make_sequence.py
 trains the seq bank from — same seed, same rng consumption order) to
 <seq>/train/ as color/depth/mask pngs, so the C++ reference's addTemplate
-loop and fealess_tpu's training path can be benchmarked on identical
+loop and fealess's training path can be benchmarked on identical
 data (BASELINE.md training throughput row).
 """
 

@@ -117,9 +117,9 @@ def build(out_dir: str, n_frames: int = 32, seed: int = 5) -> None:
         jax.config.update("jax_platforms", "cpu")
     import cv2
 
-    from fealess_tpu import config as cfg
-    from fealess_tpu import training
-    from fealess_tpu.io import linemod_yaml
+    from fealess import config as cfg
+    from fealess import training
+    from fealess.io import linemod_yaml
 
     rng = np.random.default_rng(seed)
     pts, colors = model_cloud()

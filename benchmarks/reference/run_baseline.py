@@ -1,4 +1,4 @@
-"""Measure the C++ reference baseline and pose parity vs fealess_tpu.
+"""Measure the C++ reference baseline and pose parity vs fealess.
 
 BASELINE.md requires the baseline be established by measurement (the
 reference publishes no numbers).  This driver:
@@ -7,11 +7,11 @@ reference publishes no numbers).  This driver:
      frame + an N-template bank in the reference YAML schema;
   2. builds ref_bench (CMake, links the unmodified reference sources) and
      runs it single-core -> reference ms/frame, fps, final pose;
-  3. runs fealess_tpu's ObjReco.recognition on the identical inputs (CPU,
+  3. runs fealess's ObjReco.recognition on the identical inputs (CPU,
      just for the pose) -> rotation/translation parity vs the reference.
 
-Prints a JSON summary.  Run on any host (no TPU needed); the TPU fps side
-comes from bench.py on the real chip.
+Prints a JSON summary.  Runs on the host CPU; the engine's device fps
+comes from bench.py on a GPU.
 
 Usage: python benchmarks/reference/run_baseline.py [--templates 128]
        [--iters 20] [--fresh]
@@ -84,8 +84,8 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import cv2
 
-    from fealess_tpu import config as cfg
-    from fealess_tpu.engine import CamIntrinsics, ObjReco
+    from fealess import config as cfg
+    from fealess.engine import CamIntrinsics, ObjReco
 
     eng = ObjReco.create("LmICP", cfg.EngineConfig())
     eng.add_obj(os.path.join(args.out, "features"))
@@ -95,7 +95,7 @@ def main():
     cam = CamIntrinsics(fx=fx, fy=fy, cx=cx, cy=cy,
                         width=bgr.shape[1], height=bgr.shape[0])
     ours = eng.recognition(bgr, depth, cam)
-    assert ours, "fealess_tpu found no object on the fixture scene"
+    assert ours, "fealess found no object on the fixture scene"
     our_pose = ours[0].world2cam
     rot_deg, trans_mm = pose_errors(ref_pose, our_pose)
 

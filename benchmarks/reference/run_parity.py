@@ -1,7 +1,7 @@
 """ADD pass-rate parity on the rendered multi-view sequence.
 
 Runs BOTH engines — the unmodified C++ reference (ref_series) and
-fealess_tpu's ObjReco — over the identical multi-view bank and 32-frame
+fealess's ObjReco — over the identical multi-view bank and 32-frame
 test sequence (make_sequence.py), computes the ADD metric per frame
 against the rendered ground-truth poses, and writes PARITY_r05.json at
 the repo root:
@@ -69,7 +69,7 @@ def run_fealess(seq, n, icp_mode="point_to_point"):
         jax.config.update("jax_platforms", "cpu")
     import cv2
 
-    from fealess_tpu.engine import CamIntrinsics, ObjReco
+    from fealess.engine import CamIntrinsics, ObjReco
 
     fx, fy, cx, cy = np.loadtxt(os.path.join(seq, "cam.txt"))
     eng = ObjReco.create("LmICP")
@@ -109,7 +109,7 @@ def main():
 
     exe = build_ref()
     ref_poses, ref_ms = run_reference(exe, args.seq, n)
-    tpu_poses = run_fealess(args.seq, n)
+    pt_poses = run_fealess(args.seq, n)
     plane_poses = run_fealess(args.seq, n, icp_mode="point_to_plane")
 
     def stats(poses):
@@ -118,23 +118,23 @@ def main():
         return passed / n, errs
 
     ref_rate, ref_errs = stats(ref_poses)
-    tpu_rate, tpu_errs = stats(tpu_poses)
+    pt_rate, pt_errs = stats(pt_poses)
     pl_rate, pl_errs = stats(plane_poses)
 
     summary = {
         "frames": n,
         "tau_mm": round(tau, 2),
         "ref_pass_rate": round(ref_rate, 4),
-        "fealess_pass_rate": round(tpu_rate, 4),
-        "delta_points": round(abs(ref_rate - tpu_rate) * 100, 2),
+        "fealess_pass_rate": round(pt_rate, 4),
+        "delta_points": round(abs(ref_rate - pt_rate) * 100, 2),
         "ref_detections": len(ref_poses),
-        "fealess_detections": len(tpu_poses),
+        "fealess_detections": len(pt_poses),
         "ref_mean_add_mm": round(float(np.mean(list(ref_errs.values()))), 3)
         if ref_errs else None,
         "fealess_mean_add_mm": round(
-            float(np.mean(list(tpu_errs.values()))), 3) if tpu_errs else None,
+            float(np.mean(list(pt_errs.values()))), 3) if pt_errs else None,
         "ref_ms_per_frame": round(ref_ms, 2),
-        # point-to-plane (the TPU perf path; no reference counterpart)
+        # point-to-plane (the production default; no reference counterpart)
         "plane_pass_rate": round(pl_rate, 4),
         "plane_detections": len(plane_poses),
         "plane_mean_add_mm": round(

@@ -1,9 +1,8 @@
 """Scaling-efficiency sweep on a virtual device mesh.
 
 BASELINE.json configs 4-5: template-sharded matching over a growing bank
-and frame-sharded batch reconstruction, swept over mesh sizes.  Multi-chip
-TPU hardware is not reachable from this environment, so the sweep runs on
-N virtual CPU devices (``--xla_force_host_platform_device_count``) — the
+and frame-sharded batch reconstruction, swept over mesh sizes.  The sweep
+runs on N virtual CPU devices (``--xla_force_host_platform_device_count``) — the
 collective/partitioning structure is identical to a real slice; absolute
 times are CPU times.  NOTE: virtual devices timeshare ONE physical CPU,
 so per-device work serializes and "efficiency" here measures partitioning
@@ -46,10 +45,10 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from __graft_entry__ import _tiny_bank
-    from fealess_tpu import config as cfg
-    from fealess_tpu import detector as det_mod
-    from fealess_tpu.parallel import batch_recon, mesh as mesh_mod
-    from fealess_tpu.parallel import sharded_match
+    from fealess import config as cfg
+    from fealess import detector as det_mod
+    from fealess.parallel import batch_recon, mesh as mesh_mod
+    from fealess.parallel import sharded_match
 
     # small operating point so the CPU sweep stays quick
     det_cfg = cfg.DetectorConfig(image_width=160, image_height=160,

@@ -1,12 +1,12 @@
 // Full per-view template extraction — native host path.
 //
 // One GIL-free call per (view, level, modality) replacing the numpy
-// pipeline in fealess_tpu/training.py (bit-identical, tested there):
+// pipeline in fealess/training.py (bit-identical, tested there):
 // mask erosion, candidate collection in raster order, stable descending
 // score sort, and the greedy scattered selection
 // (ColorGradientPyramid::extractTemplate linemod.cpp:461-513,
 // DepthNormalPyramid::extractTemplate linemod.cpp:747-825).  The
-// quantized maps come from the TPU front-end; only the inherently
+// quantized maps come from the device front-end; only the inherently
 // sequential selection runs here, so training views fan out across host
 // threads without GIL contention.
 

@@ -1,6 +1,6 @@
 // Threaded RGB-D frame prefetcher — the host data pipeline.
 //
-// TPU-native replacement for the reference's synchronous capture/IO loops
+// Threaded replacement for the reference's synchronous capture/IO loops
 // (test/linemod_recon.cpp:44-111 RealSense loop; test/linemod_train.cpp:40-86
 // file loads; test/img_series_reader.* file-list reader): a pool of decoder
 // threads reads (color png/jpg, depth png) pairs from disk into a bounded

@@ -6,7 +6,7 @@
 // kept feature; on exhausting the list, restart with distance-1.  The loop
 // is inherently sequential (each decision depends on all prior picks), so it
 // runs on the host; this C implementation replaces the reference's C++ and
-// the Python fallback (fealess_tpu/training.py) for large candidate sets.
+// the Python fallback (fealess/training.py) for large candidate sets.
 
 #include <cstdint>
 

@@ -21,10 +21,10 @@ import jax.numpy as jnp  # noqa: E402
 
 
 def main():
-    from fealess_tpu import config as cfg
-    from fealess_tpu import training
-    from fealess_tpu.bank import pack_bank
-    from fealess_tpu.parallel import batch_recon, multihost
+    from fealess import config as cfg
+    from fealess import training
+    from fealess.bank import pack_bank
+    from fealess.parallel import batch_recon, multihost
     from tests.test_match_e2e import H, W, make_scene
 
     multihost.initialize()

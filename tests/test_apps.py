@@ -9,7 +9,7 @@ import cv2
 import numpy as np
 import pytest
 
-from fealess_tpu.apps import cli, scan_package
+from fealess.apps import cli, scan_package
 from tests.test_match_e2e import H, W, make_scene
 
 FX = FY = 608.0
@@ -134,11 +134,11 @@ def test_cli_eval(package_dir, capsys, tmp_path):
 def test_tracked_recognizer_series(package_dir):
     """Moving object: frame 0 full detect + tracker init, later frames
     gated matches that keep reporting poses."""
-    from fealess_tpu.apps.track import TrackedRecognizer
-    from fealess_tpu.engine import CamIntrinsics
+    from fealess.apps.track import TrackedRecognizer
+    from fealess.engine import CamIntrinsics
     import dataclasses
-    from fealess_tpu import config as cfg
-    from fealess_tpu.engine import ObjReco
+    from fealess import config as cfg
+    from fealess.engine import ObjReco
 
     det = cfg.DetectorConfig(image_width=W, image_height=H)
     ecfg = cfg.EngineConfig(detector=det, refine_crop=128,
@@ -174,9 +174,9 @@ def test_tracked_recognizer_series(package_dir):
 
 def test_tracked_recognizer_lost_then_redetect(package_dir):
     import dataclasses
-    from fealess_tpu import config as cfg
-    from fealess_tpu.apps.track import TrackedRecognizer
-    from fealess_tpu.engine import CamIntrinsics, ObjReco
+    from fealess import config as cfg
+    from fealess.apps.track import TrackedRecognizer
+    from fealess.engine import CamIntrinsics, ObjReco
 
     det = cfg.DetectorConfig(image_width=W, image_height=H)
     ecfg = cfg.EngineConfig(detector=det, refine_crop=128,
@@ -205,7 +205,7 @@ def test_tracked_recognizer_lost_then_redetect(package_dir):
 
 
 def test_roi_from_mask_and_depth():
-    from fealess_tpu.apps import acquire
+    from fealess.apps import acquire
     m = np.zeros((40, 60), np.uint8)
     m[10:20, 15:30] = 1
     assert acquire.roi_from_mask(m) == (15.0, 10.0, 15.0, 10.0)
@@ -217,7 +217,7 @@ def test_roi_from_mask_and_depth():
 
 
 def test_box_extractor_headless_raises(monkeypatch):
-    from fealess_tpu.apps import acquire
+    from fealess.apps import acquire
     monkeypatch.delenv("DISPLAY", raising=False)
     monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
     with pytest.raises(RuntimeError):
@@ -228,7 +228,7 @@ def test_acquire_series_depth_pairs_by_stem(tmp_path):
     """Depth frames must pair with color frames by basename, not by sorted
     position: >=10 unpadded numeric names break lexicographic order, and a
     corrupt color png must not shift later pairs (ADVICE r1)."""
-    from fealess_tpu.apps import acquire
+    from fealess.apps import acquire
     src = tmp_path / "src"
     dsrc = tmp_path / "dsrc"
     src.mkdir(); dsrc.mkdir()
@@ -255,7 +255,7 @@ def test_acquire_series_depth_pairs_by_stem(tmp_path):
 
 
 def test_acquire_series_layout(tmp_path):
-    from fealess_tpu.apps import acquire
+    from fealess.apps import acquire
     src = tmp_path / "src"
     dsrc = tmp_path / "dsrc"
     src.mkdir(); dsrc.mkdir()

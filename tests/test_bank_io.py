@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu.bank import TemplateView, pack_bank, unpack_bank
-from fealess_tpu.io import linemod_yaml
+from fealess import config as cfg
+from fealess.bank import TemplateView, pack_bank, unpack_bank
+from fealess.io import linemod_yaml
 
 
 def _view(rng, levels=2, nf=(10, 5)):
@@ -64,8 +64,8 @@ def test_view_from_features_synthetic_template(rng, tmp_path):
     """addSyntheticTemplate equivalent (linemod.hpp:349): a hand-built
     TemplateView from external features validates, YAML round-trips, and
     self-matches when its features describe a real scene."""
-    from fealess_tpu import detector, training
-    from fealess_tpu.bank import view_from_features
+    from fealess import detector, training
+    from fealess.bank import view_from_features
     from tests.test_match_e2e import make_scene, H, W
     import jax.numpy as jnp
 
@@ -97,7 +97,7 @@ def test_view_from_features_synthetic_template(rng, tmp_path):
 
 
 def test_view_from_features_validates(rng):
-    from fealess_tpu.bank import view_from_features
+    from fealess.bank import view_from_features
 
     good = [[np.array([[1, 2, 3]], np.int32)] * 2] * 2
     view_from_features(good, [38, 19], [30, 15], [0, 0], [0, 0],

@@ -6,14 +6,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu.io import checkpoint
+from fealess import config as cfg
+from fealess.io import checkpoint
 from tests.test_match_e2e import det_cfg, scene, trained  # noqa: F401
 
 
 @pytest.fixture()
 def packed(trained, det_cfg):  # noqa: F811
-    from fealess_tpu.bank import pack_bank
+    from fealess.bank import pack_bank
     return pack_bank({"obj": [trained]}, levels=det_cfg.pyramid_levels,
                      capacity=4, max_features=63)
 
@@ -46,7 +46,7 @@ def test_yaml_interop(tmp_path, packed, det_cfg):  # noqa: F811
 def test_stage_timer_report():
     import time
 
-    from fealess_tpu.utils.profiling import StageTimer
+    from fealess.utils.profiling import StageTimer
     t = StageTimer()
     with t.stage("a"):
         time.sleep(0.01)

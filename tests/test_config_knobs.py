@@ -1,7 +1,7 @@
 """Every public config field must observably change behaviour.
 
 VERDICT r4 found one dead knob (``valid_depth_max_mm``); this suite pins
-each field of the config dataclasses (fealess_tpu.config) to an
+each field of the config dataclasses (fealess.config) to an
 observable effect so a knob can never silently become a no-op again.
 Fields whose effect is structural (shapes) are asserted on shapes; numeric
 knobs on value changes.  Modalities selection (LINE vs LINE-MOD) is
@@ -14,10 +14,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import detector, icp as icp_mod, nms as nms_mod, training
-from fealess_tpu.bank import pack_bank
-from fealess_tpu.ops import quantize as q
+from fealess import config as cfg
+from fealess import detector, icp as icp_mod, nms as nms_mod, training
+from fealess.bank import pack_bank
+from fealess.ops import quantize as q
 from tests.test_match_e2e import H, W, make_scene
 
 
@@ -303,7 +303,7 @@ def test_icp_plane_point_blend():
 
 
 def test_icp_max_points_caps_refine_pairs(scene):
-    from fealess_tpu import pipeline
+    from fealess import pipeline
 
     _, depth, _ = scene
     k = jnp.asarray([[608.0, 0, 120], [0, 608.0, 80], [0, 0, 1]],

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fealess_tpu.geometry import depth as gd
+from fealess.geometry import depth as gd
 
 
 def test_depth_to_3d_pinhole(rng):

@@ -9,10 +9,10 @@ import cv2
 import numpy as np
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import training
-from fealess_tpu.engine import CamIntrinsics, ObjReco
-from fealess_tpu.io import linemod_yaml
+from fealess import config as cfg
+from fealess import training
+from fealess.engine import CamIntrinsics, ObjReco
+from fealess.io import linemod_yaml
 from tests.test_match_e2e import H, W, make_scene
 
 FX = FY = 608.0
@@ -110,7 +110,7 @@ def test_recognize_top1_fused_matches_host_path(feature_dir):
     math; only the orchestration differs)."""
     import jax
     import jax.numpy as jnp
-    from fealess_tpu import pipeline
+    from fealess import pipeline
 
     eng = _engine(feature_dir)
     _, (bgr, depth, _), _ = feature_dir

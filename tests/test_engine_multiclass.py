@@ -14,10 +14,10 @@ import cv2
 import numpy as np
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import training
-from fealess_tpu.engine import CamIntrinsics, ObjReco
-from fealess_tpu.io import linemod_yaml
+from fealess import config as cfg
+from fealess import training
+from fealess.engine import CamIntrinsics, ObjReco
+from fealess.io import linemod_yaml
 from tests.test_match_e2e import H, W, make_scene
 
 FX = FY = 608.0

@@ -1,10 +1,12 @@
 """ICP property tests: recover known rigid perturbations (SURVEY.md §4b)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import icp as icp_mod
+from fealess import config as cfg
+from fealess import icp as icp_mod
 
 
 def _rot(axis, deg):
@@ -111,16 +113,43 @@ def test_icp_invalid_z_excluded(rng):
     assert float(res.dist_mean) <= 0.5
 
 
-def test_nn_pallas_interpret_matches_xla(rng):
-    """The TPU tile kernel (interpret mode) vs the XLA path: identical
-    indices and distances, including first-minimum tie-breaking."""
-    from fealess_tpu.ops import nn_pallas
-    query = rng.normal(size=(300, 3)).astype(np.float32) * 50
-    ref = np.concatenate([query[:100], rng.normal(size=(400, 3))
-                          .astype(np.float32) * 50])  # exact dupes -> ties
-    qi = jnp.asarray(query)
-    ri = jnp.asarray(ref)
-    idx_p, d2_p = nn_pallas.nearest_neighbor_tiled(qi, ri, interpret=True)
-    idx_x, d2_x = nn_pallas._nn_xla_blocked(qi, ri)
-    np.testing.assert_array_equal(np.asarray(idx_p), np.asarray(idx_x))
-    np.testing.assert_allclose(np.asarray(d2_p), np.asarray(d2_x), rtol=1e-6)
+def _nn_brute(query, ref):
+    d2 = ((query[:, None, :].astype(np.float64)
+           - ref[None, :, :].astype(np.float64)) ** 2).sum(-1)
+    return d2.argmin(1), d2.min(1)
+
+
+@pytest.mark.parametrize("case", ["ties", "padding", "odd_sizes", "vmap"])
+def test_nearest_neighbor_matches_brute_force(rng, case):
+    """icp.nearest_neighbor (one fused variadic reduction) against a numpy
+    brute force: first-minimum tie-breaking on exact duplicates and integer
+    grids, PAD_COORD rows never chosen, sizes that are no power of two,
+    and batching under vmap."""
+    if case == "ties":
+        query = rng.integers(0, 4, (257, 3)).astype(np.float32)
+        ref = rng.integers(0, 4, (300, 3)).astype(np.float32)
+    elif case == "padding":
+        query = rng.normal(size=(200, 3)).astype(np.float32) * 50
+        ref = np.full((512, 3), icp_mod.PAD_COORD, np.float32)
+        ref[:250] = rng.normal(size=(250, 3)) * 50
+        query[150:] = icp_mod.PAD_COORD
+    else:
+        query = rng.normal(size=(131, 3)).astype(np.float32) * 50
+        ref = np.concatenate([query[:40], rng.normal(size=(333, 3))
+                              .astype(np.float32) * 50])
+    if case == "vmap":
+        shifted = query + np.float32(3.0)
+        idx, d2 = jax.vmap(icp_mod.nearest_neighbor, in_axes=(0, None))(
+            jnp.asarray(np.stack([query, shifted])), jnp.asarray(ref))
+        for b, qb in enumerate((query, shifted)):
+            want_i, want_d = _nn_brute(qb, ref)
+            np.testing.assert_array_equal(np.asarray(idx[b]), want_i)
+            np.testing.assert_allclose(np.asarray(d2[b]), want_d,
+                                       rtol=1e-5, atol=1e-6)
+        return
+    idx, d2 = icp_mod.nearest_neighbor(jnp.asarray(query), jnp.asarray(ref))
+    want_i, want_d = _nn_brute(query, ref)
+    np.testing.assert_array_equal(np.asarray(idx), want_i)
+    np.testing.assert_allclose(np.asarray(d2), want_d, rtol=1e-5, atol=1e-6)
+    if case == "padding":
+        assert np.all(np.asarray(idx)[:150] < 250)

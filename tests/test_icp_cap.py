@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import pipeline
+from fealess import config as cfg
+from fealess import pipeline
 
 W, H = 640, 480
 FX = FY = 608.0

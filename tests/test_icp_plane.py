@@ -7,12 +7,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from fealess_tpu import config as cfg
-from fealess_tpu import icp as icp_mod
-from fealess_tpu.geometry import depth as gd
-from fealess_tpu.geometry import transforms as tf
-from fealess_tpu.parallel import mesh as mesh_mod
-from fealess_tpu.parallel import sharded_icp
+from fealess import config as cfg
+from fealess import icp as icp_mod
+from fealess.geometry import depth as gd
+from fealess.geometry import transforms as tf
+from fealess.parallel import mesh as mesh_mod
+from fealess.parallel import sharded_icp
 
 
 def test_so3_exp_matches_rodrigues(rng):

@@ -9,7 +9,7 @@ import cv2
 import numpy as np
 import pytest
 
-from fealess_tpu.ops import image as fi
+from fealess.ops import image as fi
 
 
 @pytest.fixture
@@ -88,8 +88,8 @@ def test_erode3_np_matches_device_twin():
     (the host twin exists so extraction never hits the device)."""
     import numpy as np
 
-    from fealess_tpu import training as tr
-    from fealess_tpu.ops import image as fi
+    from fealess import training as tr
+    from fealess.ops import image as fi
 
     rng = np.random.default_rng(0)
     m = rng.random((37, 53)) > 0.4

@@ -43,7 +43,7 @@ def kcf_bench():
 
 
 def test_fhog31_matches_reference(kcf_bench, tmp_path):
-    from fealess_tpu.tracker import fhog
+    from fealess.tracker import fhog
 
     rng = np.random.default_rng(4)
     patch = rng.integers(0, 256, (96, 80, 3), np.uint8)
@@ -79,7 +79,7 @@ def _make_frames(tmp_path, n=20):
 
 
 def test_tracked_roi_trace_matches_reference(kcf_bench, tmp_path):
-    from fealess_tpu.tracker.kcf import KcfTracker, kcf_reference_config
+    from fealess.tracker.kcf import KcfTracker, kcf_reference_config
 
     gt = _make_frames(tmp_path)
     x0, y0, w0, h0 = gt[0][0], gt[0][1], 64, 64

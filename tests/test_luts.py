@@ -2,7 +2,7 @@
 
 These tests parse the reference's machine-generated tables at test time
 (read-only) and compare element-for-element with our generating formulas
-(fealess_tpu/ops/luts.py) — proving the formulas, not copying the blobs.
+(fealess/ops/luts.py) — proving the formulas, not copying the blobs.
 """
 
 import os
@@ -11,7 +11,7 @@ import re
 import numpy as np
 import pytest
 
-from fealess_tpu.ops import luts
+from fealess.ops import luts
 from tests.conftest import REFERENCE_DIR, has_reference
 
 pytestmark = pytest.mark.skipif(not has_reference(),

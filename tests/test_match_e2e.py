@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import detector, training
-from fealess_tpu.bank import pack_bank
+from fealess import config as cfg
+from fealess import detector, training
+from fealess.bank import pack_bank
 
 H, W = 160, 240  # divisible by 5 (level-0 T) and 16 (level-1 T=8 after /2)
 
@@ -153,7 +153,7 @@ def test_roi_box_gates_candidates(trained, scene, det_cfg):
     object reproduces the ungated match; a box away from it kills every
     candidate (the tracked pipeline's cheap gate)."""
     import jax.numpy as jnp
-    from fealess_tpu.bank import pack_bank
+    from fealess.bank import pack_bank
 
     bgr, depth, mask = scene
     bank = pack_bank({"obj": [trained]}, levels=det_cfg.pyramid_levels,

@@ -7,9 +7,9 @@ import cv2
 import numpy as np
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu.engine import CamIntrinsics, ObjReco
-from fealess_tpu.io import linemod_yaml, series
+from fealess import config as cfg
+from fealess.engine import CamIntrinsics, ObjReco
+from fealess.io import linemod_yaml, series
 from tests.test_match_e2e import H, W, det_cfg, scene, trained  # noqa: F401
 
 
@@ -76,8 +76,8 @@ def test_image_series_reader_dir(tmp_path):
 
 
 def test_visualize_overlays(trained, det_cfg):  # noqa: F811
-    from fealess_tpu.apps import visualize
-    from fealess_tpu.bank import pack_bank
+    from fealess.apps import visualize
+    from fealess.bank import pack_bank
 
     bank = pack_bank({"obj": [trained]}, levels=det_cfg.pyramid_levels,
                      capacity=2)
@@ -96,8 +96,8 @@ def test_line_gradient_only_detector(scene, trained):  # noqa: F811
     (linemod.cpp:1822-1827)."""
     import jax.numpy as jnp
 
-    from fealess_tpu import detector, training
-    from fealess_tpu.bank import pack_bank
+    from fealess import detector, training
+    from fealess.bank import pack_bank
 
     line_cfg = cfg.default_line()
     line_cfg = cfg.dataclasses.replace(line_cfg, image_width=W,

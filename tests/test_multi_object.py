@@ -5,7 +5,7 @@ reference engine exposes only as top-1)."""
 
 import numpy as np
 
-from fealess_tpu.engine import CamIntrinsics
+from fealess.engine import CamIntrinsics
 from tests.test_engine import FX, FY, CX, CY, _engine, feature_dir  # noqa: F401
 from tests.test_match_e2e import H, W
 
@@ -66,7 +66,7 @@ def test_multi_no_per_frame_model_depth_upload(feature_dir, monkeypatch):  # noq
     uploaded once at add_obj — not re-upload it per frame (~134 MB/frame
     at 1024 templates; VERDICT r3 #2).  Spy on the engine module's
     jnp.asarray: no call may see the (N, crop, crop) stack."""
-    import fealess_tpu.engine as engine_mod
+    import fealess.engine as engine_mod
 
     eng = _engine(feature_dir)
     _, (bgr, depth, _), _ = feature_dir
@@ -102,7 +102,7 @@ def test_multi_tracked_recognizer(feature_dir):  # noqa: F811
     """N-object gated tracking: both pasted instances stay tracked and
     recognized across a panning sequence (per-size-bucket vmapped KCF +
     one union-masked recognition_multi per frame)."""
-    from fealess_tpu.apps.track import MultiTrackedRecognizer
+    from fealess.apps.track import MultiTrackedRecognizer
 
     eng = _engine(feature_dir)
     _, (bgr, depth, mask), _ = feature_dir

@@ -13,9 +13,9 @@ import cv2
 import numpy as np
 import pytest
 
-from fealess_tpu import training
-from fealess_tpu.io import native
-from fealess_tpu.ops import image as fi
+from fealess import training
+from fealess.io import native
+from fealess.ops import image as fi
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,8 +107,8 @@ def test_native_extraction_matches_numpy(lib, monkeypatch):
     """The one-call native extractors must be bit-identical to the numpy
     reference path on a realistic quantized view (both modalities, with
     and without mask)."""
-    from fealess_tpu import config as cfg
-    from fealess_tpu.ops import quantize as q
+    from fealess import config as cfg
+    from fealess.ops import quantize as q
     from tests.test_match_e2e import make_scene
 
     bgr, depth, mask = make_scene(np.random.default_rng(7))

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fealess_tpu.nms import nms_3d
+from fealess.nms import nms_3d
 
 
 def _oracle(t, icp_dist, n_pts, valid, th):

@@ -9,11 +9,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import detector, icp as icp_mod, training
-from fealess_tpu.bank import pack_bank
-from fealess_tpu.parallel import mesh as mesh_mod
-from fealess_tpu.parallel import sharded_icp, sharded_match
+from fealess import config as cfg
+from fealess import detector, icp as icp_mod, training
+from fealess.bank import pack_bank
+from fealess.parallel import mesh as mesh_mod
+from fealess.parallel import sharded_icp, sharded_match
 from tests.test_match_e2e import H, W, make_scene
 
 
@@ -86,7 +86,7 @@ def test_sharded_icp_equals_local(rng):
 
 def test_batch_recon_sharded_matches_single(scene_and_bank, det_cfg):
     """Frame-sharded batch Recognition == single-device vmapped batch."""
-    from fealess_tpu.parallel import batch_recon
+    from fealess.parallel import batch_recon
 
     (bgr, depth), bank = scene_and_bank
     engine = cfg.EngineConfig(detector=det_cfg, refine_crop=96,
@@ -117,7 +117,7 @@ def test_batch_recon_sharded_matches_single(scene_and_bank, det_cfg):
 def test_match_batch_2d_mesh(scene_and_bank, det_cfg):
     """(d=2, t=4) frame x template mesh: each frame's merged global
     top-K must equal the single-device full-bank match on that frame."""
-    from fealess_tpu.parallel import batch_recon
+    from fealess.parallel import batch_recon
 
     (bgr, depth), bank = scene_and_bank
     bgrs = jnp.asarray(np.stack([bgr, np.roll(bgr, 10, axis=1)]))

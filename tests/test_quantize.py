@@ -6,8 +6,8 @@ import cv2
 import numpy as np
 import pytest
 
-from fealess_tpu.ops import quantize as q
-from fealess_tpu.ops import luts
+from fealess.ops import quantize as q
+from fealess.ops import luts
 
 
 def _oracle_quantize_gradients(bgr: np.ndarray, weak_threshold: float):

@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import pytest
 
 from __graft_entry__ import _tiny_bank
-from fealess_tpu import config as cfg
-from fealess_tpu.parallel import mesh as mesh_mod
-from fealess_tpu.parallel import sharded_match
+from fealess import config as cfg
+from fealess.parallel import mesh as mesh_mod
+from fealess.parallel import sharded_match
 
 SIZES = (1, 2, 4, 8)
 

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fealess_tpu import config as cfg
-from fealess_tpu import detector
-from fealess_tpu.bank import TemplateBank
-from fealess_tpu.ops import score_pallas
+from fealess import config as cfg
+from fealess import detector
+from fealess.bank import TemplateBank
+from fealess.ops import score_pallas, similarity
 
 
 def _random_bank(rng, n, levels, mods, f, span_px, t_at_level):
@@ -103,10 +103,9 @@ def _local_oracle(planes, bank, slots, px0, py0, t, l=0):
 
 
 def test_local_scores_right_edge_wd128(rng):
-    """Candidates whose 16-lane window read crosses lane 128 at the
-    level-0 640-wide contract (Wd = 128): in-image columns must keep
-    their true score (the r3 kernel dropped whole rx-buckets there —
-    ADVICE r3)."""
+    """Candidates whose 16-column window reads run past the right image
+    edge at the level-0 640-wide geometry (Wd = 128): in-image columns
+    keep their true score, columns past the edge score 0."""
     t = 5
     hd, wd = 96, 128
     mods, f, n = 2, 24, 6
@@ -132,9 +131,8 @@ def test_local_scores_right_edge_wd128(rng):
 
 
 def test_local_scores_wide_plane_fallback(rng):
-    """Wd > 128 (e.g. image_width 800 -> level-0 Wd=160) rides the
-    width-agnostic XLA scorer instead of crashing the 128-lane kernel
-    (ADVICE r3)."""
+    """A level-0 width that is no power of two (image_width 800 ->
+    Wd=160), windows up to the right edge included."""
     t = 5
     hd, wd = 40, 160
     mods, f, n = 2, 20, 5
@@ -222,7 +220,7 @@ def test_deferred_topk_equals_flat_f32_formulation():
     import jax
     import jax.numpy as jnp
 
-    from fealess_tpu import detector
+    from fealess import detector
 
     rng = np.random.default_rng(1)
     n, hd, wd = 64, 12, 17
@@ -257,3 +255,116 @@ def test_deferred_topk_equals_flat_f32_formulation():
         fin = np.isfinite(np.asarray(ref_s))
         assert np.array_equal(np.asarray(ref_i)[fin],
                               np.asarray(new_i)[fin]), trial
+
+
+def _coarse_oracle_case(rng, hd, wd, n):
+    """Random bank + planes at a real coarse geometry (T=8, two
+    modalities, 63 features each, 192-px template span)."""
+    t = 8
+    mods, f = 2, 63
+    det_cfg = cfg.DetectorConfig(image_width=wd * t * 2,
+                                 image_height=hd * t * 2)
+    bank = _random_bank(rng, n, 2, mods, f, 192, det_cfg.t_at_level)
+    planes = rng.integers(0, 5, (mods * 8 * t * t, hd, wd), np.uint8)
+    tables = detector.build_match_tables(bank, det_cfg,
+                                         grid_hw=[(hd * 2, wd * 2),
+                                                  (hd, wd)])
+    return bank, planes, tables[1], t
+
+
+def _whole_image_oracle(bank, planes, t, l=1):
+    """ops.similarity's flat-buffer scorer plus the mask of candidate-
+    eligible positions (no template column wraps past the row end —
+    the only positions the detector seeds from)."""
+    n = bank.capacity
+    c_ch, hd, wd = planes.shape
+    p = hd * wd
+    mod_off = 8 * jnp.arange(bank.modalities, dtype=jnp.int32)[None, :, None]
+    lbl = (bank.feat_label[:, l] + mod_off).reshape(n, -1)
+    c_f, off = similarity.pack_features(
+        bank.feat_x[:, l].reshape(n, -1), bank.feat_y[:, l].reshape(n, -1),
+        lbl, t, wd)
+    d_flat = jnp.pad(jnp.asarray(planes).reshape(c_ch, p),
+                     ((0, 0), (0, p + 1)))
+    want = np.asarray(similarity.whole_image_similarity(
+        d_flat, c_f, off, bank.feat_valid[:, l].reshape(n, -1),
+        p)).reshape(n, hd, wd)
+    wf = (np.asarray(bank.width[:, l]) - 1) // t + 1
+    hf = (np.asarray(bank.height[:, l]) - 1) // t + 1
+    ok = ((np.arange(wd)[None, None, :] <= (wd - wf)[:, None, None])
+          & (np.arange(hd)[None, :, None] <= (hd - hf)[:, None, None]))
+    return want, ok
+
+
+@pytest.mark.parametrize("hd,wd,n", [(30, 40, 8), (60, 80, 8),
+                                     (30, 40, 13)],
+                         ids=["640x480", "1280x960", "13_templates"])
+def test_coarse_triton_kernel_matches_similarity_oracle(rng, hd, wd, n):
+    """The Triton coarse kernel, run by the Pallas interpreter, equals
+    the independent gather oracle (ops.similarity) at the coarse grids of
+    the 640x480 and 1280x960 geometries (one and two row tiles) and at a
+    template count that is no power of two."""
+    bank, planes, table, t = _coarse_oracle_case(rng, hd, wd, n)
+    got = np.asarray(score_pallas._coarse_scores_triton(
+        jnp.asarray(planes), table, interpret=True))
+    want, ok = _whole_image_oracle(bank, planes, t)
+    assert got.shape == (n, hd, wd)
+    np.testing.assert_array_equal(np.where(ok, got, 0), np.where(ok, want, 0))
+    np.testing.assert_array_equal(
+        got, np.asarray(score_pallas._coarse_scores_xla(jnp.asarray(planes),
+                                                        table)))
+
+
+def test_coarse_triton_kernel_under_vmap(rng):
+    """A frame batch (parallel.batch_recon vmaps the step) batches the
+    Triton kernel's grid; each frame equals its own plain score."""
+    bank, planes, table, _ = _coarse_oracle_case(rng, 30, 40, 4)
+    batch = jnp.asarray(np.stack([planes, planes[::-1]]))
+    got = np.asarray(jax.vmap(lambda p: score_pallas._coarse_scores_triton(
+        p, table, interpret=True))(batch))
+    for b in range(2):
+        np.testing.assert_array_equal(
+            got[b], np.asarray(score_pallas._coarse_scores_xla(batch[b],
+                                                               table)))
+
+
+def test_local_scores_match_similarity_oracle(rng):
+    """The single-gather local scorer equals ops.similarity's flat-buffer
+    window oracle on every window whose reads stay inside the image
+    (elsewhere the oracle wraps rows and the scorer reads zeros)."""
+    t = 5
+    hd, wd = 96, 128
+    mods, f, n, k = 2, 63, 12, 32
+    det_cfg = cfg.DetectorConfig(image_width=wd * t, image_height=hd * t)
+    bank = _random_bank(rng, n, 2, mods, f, 96, det_cfg.t_at_level)
+    planes = rng.integers(0, 5, (mods * 8 * t * t, hd, wd), np.uint8)
+    tables = detector.build_match_tables(bank, det_cfg,
+                                         grid_hw=[(hd, wd),
+                                                  (hd // 2, wd // 2)])
+    slots = rng.integers(0, n, (k,))
+    px0 = rng.integers(0, wd - 16 + 1, (k,)).astype(np.int32)
+    py0 = rng.integers(0, hd - 16 + 1, (k,)).astype(np.int32)
+    table_k = {key: tables[0][key][slots] for key in tables[0]}
+    got = np.asarray(score_pallas.local_scores(
+        jnp.asarray(planes), table_k, jnp.asarray(px0), jnp.asarray(py0)))
+
+    mod_off = 8 * np.arange(mods)[None, :, None]
+    fx = np.asarray(bank.feat_x)[:, 0].reshape(n, -1)[slots]
+    fy = np.asarray(bank.feat_y)[:, 0].reshape(n, -1)[slots]
+    lbl = (np.asarray(bank.feat_label)[:, 0] + mod_off).reshape(n, -1)[slots]
+    fv = np.asarray(bank.feat_valid)[:, 0].reshape(n, -1)[slots]
+    c, _ = similarity.pack_features(jnp.asarray(fx), jnp.asarray(fy),
+                                    jnp.asarray(lbl), t, wd)
+    ry, rx = fy // t, fx // t
+    base = (py0[:, None] + ry) * wd + (px0[:, None] + rx)
+    p = hd * wd
+    stride = p + 16 * wd + 16
+    d_flat = jnp.pad(jnp.asarray(planes).reshape(-1, p),
+                     ((0, 0), (0, stride - p))).reshape(-1)
+    want = np.asarray(similarity.local_similarity(
+        d_flat, c, jnp.asarray(base), jnp.asarray(fv), stride,
+        wd)).reshape(k, 16, 16)
+    interior = ((np.max(np.where(fv, rx, 0), axis=1) + px0 + 16 <= wd)
+                & (np.max(np.where(fv, ry, 0), axis=1) + py0 + 16 <= hd))
+    assert interior.sum() >= 8
+    np.testing.assert_array_equal(got[interior], want[interior])

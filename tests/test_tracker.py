@@ -12,9 +12,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fealess_tpu.ops.sampling import sample_patch_bilinear
-from fealess_tpu.tracker import fhog
-from fealess_tpu.tracker.kcf import (KcfTracker, kcf_reference_config)
+from fealess.ops.sampling import sample_patch_bilinear
+from fealess.tracker import fhog
+from fealess.tracker.kcf import (KcfTracker, kcf_reference_config)
 
 NUM_SECTOR = 9
 
@@ -43,7 +43,7 @@ def test_sample_patch_identity_window_exact():
     got = np.asarray(sample_patch_bilinear(jnp.asarray(img),
                                            10.0, 5.0, 32.0, 24.0, 24, 32))
     want = _ref_subwindow_resize(img, 10, 5, 32, 24, 32, 24)
-    np.testing.assert_allclose(got, want.astype(np.float32), atol=1e-4)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
 
 
 def test_sample_patch_replicate_border_exact():
@@ -53,19 +53,26 @@ def test_sample_patch_replicate_border_exact():
     got = np.asarray(sample_patch_bilinear(jnp.asarray(img),
                                            -8.0, -6.0, 70.0, 60.0, 60, 70))
     want = _ref_subwindow_resize(img, -8, -6, 70, 60, 70, 60)
-    np.testing.assert_allclose(got, want.astype(np.float32), atol=1e-4)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
 
 
-def test_sample_patch_resize_matches_cv2():
+@pytest.mark.parametrize("window", [
+    (4, 8, 40, 30, 20, 24),        # downscale inside the image
+    (3, 5, 30, 40, 96, 96),        # upscale
+    (10, 2, 37, 29, 50, 41),       # odd sizes
+    (-9, 40, 50, 37, 48, 48),      # window hangs off the left edge
+    (30, -7, 44, 52, 48, 48),      # and off the top
+], ids=["down", "up", "odd", "left_edge", "top_edge"])
+def test_sample_patch_resize_matches_cv2(window):
+    """The fixed-point sampler equals RectTools::subwindow + cv::resize
+    INTER_LINEAR of the 8-bit patch value for value, borders included."""
+    x0, y0, sw, sh, oh, ow = window
     rng = np.random.default_rng(2)
-    img = rng.integers(0, 255, size=(64, 64, 3), dtype=np.uint8)
-    got = np.asarray(sample_patch_bilinear(jnp.asarray(img),
-                                           4.0, 8.0, 40.0, 30.0, 20, 24))
-    want = _ref_subwindow_resize(img, 4, 8, 40, 30, 24, 20)
-    # interior only: cv::resize clamps sampling to the window, we clamp to
-    # the image (documented divergence at the half-pixel border)
-    np.testing.assert_allclose(got[1:-1, 1:-1], want.astype(np.float32)[1:-1, 1:-1],
-                               atol=1.0)   # cv2 resize is fixed-point
+    img = rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8)
+    got = np.asarray(sample_patch_bilinear(jnp.asarray(img), x0, y0, sw, sh,
+                                           oh, ow))
+    want = _ref_subwindow_resize(img, x0, y0, sw, sh, ow, oh)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
 
 
 # ------------------------------------------------------------------- fhog

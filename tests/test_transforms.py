@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fealess_tpu.geometry import transforms as tf
+from fealess.geometry import transforms as tf
 
 
 def _random_rotation(rng):
